@@ -4,12 +4,10 @@ For each configuration, lowers + compiles the batched solve, reads XLA's own
 cost analysis (FLOPs + HBM bytes accessed), times steady-state execution,
 and reports achieved FLOP/s, achieved bandwidth, and arithmetic intensity.
 This is the "prove" side of the large-horizon item: it shows WHERE each
-configuration sits on the roofline — the small-model MPC solve is
-bandwidth/occupancy-bound, not MXU-bound, so a denser factorization cannot
-buy another order of magnitude; scaling comes from batch (more lanes), not
-from per-solve FLOP reduction.
+configuration sits on the roofline against the card's published peaks.
 
-Prints one JSON line per config.  Run on the real TPU (single process).
+Prints one JSON line per config, with the device it ran on.  Runs on the
+GPU only (``python bench_roofline.py`` on a machine with one card).
 """
 
 from __future__ import annotations
@@ -19,10 +17,21 @@ import time
 
 import numpy as np
 
-# v5e single-chip peaks (public spec): ~197 TFLOP/s bf16, ~98 TFLOP/s f32
-# (MXU), ~819 GB/s HBM BW.
-PEAK_F32_FLOPS = 9.8e13
-PEAK_HBM_BPS = 8.19e11
+# Published peaks by JAX device kind: f32 FLOP/s outside the tensor cores
+# (what HIGHEST-precision f32 products and elementwise work run on) and
+# device-memory bytes/s.  Source: NVIDIA H100 data sheet, SXM part, at the
+# full 700 W power limit; a card set below it cannot hold its top clock.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": dict(f32_flops=67e12, hbm_bps=3.35e12),
+}
+
+
+def peaks_for(device_kind: str) -> dict:
+    """Peaks of a device kind; a kind missing from the table is an error."""
+    if device_kind not in PEAKS:
+        raise KeyError(f"no published peaks for device kind {device_kind!r}; "
+                       f"add them to bench_roofline.PEAKS with their source")
+    return PEAKS[device_kind]
 
 
 def measure(model_name, horizon, batch, spec_kwargs, n_ctrl, reps=5):
@@ -34,6 +43,11 @@ def measure(model_name, horizon, batch, spec_kwargs, n_ctrl, reps=5):
     from safe_control_tpu.dynamics import get_model
     from safe_control_tpu.solvers import mpc_cbf
 
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        raise SystemExit(f"bench_roofline.py measures the GPU; JAX's device is "
+                         f"{dev.platform!r}")
+    peaks = peaks_for(dev.device_kind)
     spec = make_spec(model_name, **spec_kwargs)
     model = get_model(model_name)
     cfg = mpc_cbf.MPCConfig(horizon=horizon, num_obs=5)
@@ -65,18 +79,18 @@ def measure(model_name, horizon, batch, spec_kwargs, n_ctrl, reps=5):
     flops = float(cost.get("flops", 0.0))
     bytes_acc = float(cost.get("bytes accessed", 0.0))
 
-    u, Us_w = fn(xs, Us)
-    _ = np.asarray(u[:1])
+    u, Us_w = jax.block_until_ready(fn(xs, Us))
     t0 = time.perf_counter()
     for _ in range(reps):
         u, Us_w = fn(xs, Us_w)
-    _ = np.asarray(u[:1, :1])
+    jax.block_until_ready(u)
     dt_wall = (time.perf_counter() - t0) / reps
 
     achieved_flops = flops / dt_wall
     achieved_bw = bytes_acc / dt_wall
     return {
         "metric": "mpc_cbf_roofline",
+        "device_kind": dev.device_kind,
         "model": model_name,
         "horizon": horizon,
         "batch": batch,
@@ -85,9 +99,9 @@ def measure(model_name, horizon, batch, spec_kwargs, n_ctrl, reps=5):
         "xla_flops_per_solve": round(flops / batch, 1),
         "xla_bytes_per_solve": round(bytes_acc / batch, 1),
         "achieved_tflops": round(achieved_flops / 1e12, 4),
-        "pct_of_f32_peak": round(100 * achieved_flops / PEAK_F32_FLOPS, 2),
+        "pct_of_f32_peak": round(100 * achieved_flops / peaks["f32_flops"], 2),
         "achieved_gbps": round(achieved_bw / 1e9, 2),
-        "pct_of_hbm_peak": round(100 * achieved_bw / PEAK_HBM_BPS, 2),
+        "pct_of_hbm_peak": round(100 * achieved_bw / peaks["hbm_bps"], 2),
         "arithmetic_intensity": round(flops / max(bytes_acc, 1.0), 3),
     }
 
@@ -101,12 +115,7 @@ def main():
         (VTOL_2D, 30, 256, dict(), 4),
     ]
     for model_name, horizon, batch, kw, n_ctrl in cases:
-        try:
-            print(json.dumps(measure(model_name, horizon, batch, kw, n_ctrl)))
-        except Exception as e:
-            print(json.dumps({"metric": "mpc_cbf_roofline", "model": model_name,
-                              "horizon": horizon,
-                              "error": f"{type(e).__name__}: {e}"}))
+        print(json.dumps(measure(model_name, horizon, batch, kw, n_ctrl)))
 
 
 if __name__ == "__main__":

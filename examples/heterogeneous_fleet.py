@@ -4,7 +4,7 @@ Usage: python examples/heterogeneous_fleet.py --n 4096 --steps 200
 
 Three model families (DoubleIntegrator2D, DynamicUnicycle2D,
 KinematicBicycle2D_DPCBF) in corridor traffic with inter-robot coupling,
-all inside one jit.  On the TPU this is the 4k-agent anchor; on CPU use a
+all inside one jit.  On the GPU this is the 4k-agent anchor; on CPU use a
 smaller --n.
 """
 

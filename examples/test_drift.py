@@ -62,7 +62,7 @@ CASES = {
         # Large ego-lane puddle right before the evasive region; the harsher
         # mu=0.05 core (vs the reference's 0.25) is kept because this stack
         # survives mu=0.25 — the negative test must actually break the
-        # shielding assumption (documented delta, round-1 VERDICT).
+        # shielding assumption (documented delta).
         puddles=[(28.0, "ego", 10.0, 0.05)],
         num_obstacles=2,
     ),

@@ -5,7 +5,7 @@ Usage:  python examples/test_tracking.py --model du --algo mpc_cbf [--render]
 Same CLI surface as the reference (:11-21); prints "Success!" iff the run
 ends with all waypoints reached and no collision/infeasibility
 (:170-175).  Rendering is an after-the-fact replay of the logged
-trajectory (TPU-native split: device sim, host viz).
+trajectory (device sim, host viz).
 """
 
 import argparse

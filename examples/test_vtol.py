@@ -3,9 +3,8 @@
 Usage:  python examples/test_vtol.py [--render] [--tf 100] [--rti]
 
 ``--rti`` selects the real-time-iteration MPC budget (MPCConfig.rti): the
-configuration that meets the reference's 50 ms control period on TPU for
-the N=30 horizon (PERF.md latency roofline; quality gated in
-tests/test_vtol_e2e.py).
+real-time route to the reference's 50 ms control period for the N=30
+horizon (quality gated in tests/test_vtol_e2e.py).
 
 Full reference route (test_vtol.py:19-64): cruise the corridor at altitude
 from (2,10) to (70,10), then descend between the two pillar columns

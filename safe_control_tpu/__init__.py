@@ -1,48 +1,39 @@
-"""safe_control_tpu — a TPU-native safety-filter + MPC framework.
+"""safe_control_tpu — a batched safety-filter + MPC framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design with the capabilities of
 tkkim-robot/safe_control: robot dynamics models, control barrier functions
 (CBF-QP, MPC-CBF, optimal-decay variants), shielding (gatekeeper/MPS/
 backup-CBF), perception, environments and tracking orchestration — all as
-pure functions that ``vmap``/``pjit`` across thousands of robots and a TPU
-pod slice.
+pure functions that ``vmap``/``shard_map`` across thousands of robots and
+several GPUs.
 """
 
 import os as _os
 
+# Fixed default location of the persistent compile cache: the checkout
+# root.  A cache's entries are keyed by the path, so it must not move.
+_DEFAULT_CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))), ".jax_cache"
+)
+
 
 def _enable_persistent_compile_cache() -> None:
-    """Configure JAX's persistent compilation cache (once per machine).
+    """Place JAX's persistent compilation cache.
 
-    The fused Pallas MPC kernels take minutes to compile on TPU (the DU N=8
-    mega-kernel's Mosaic compile was measured at ~15 min); the persistent
-    cache makes that a one-time cost per machine instead of per process.
-    Opt out with SAFE_CONTROL_JAX_CACHE_DIR="" (empty); override the
-    location with SAFE_CONTROL_JAX_CACHE_DIR=/path.  Only compiles slower
-    than 2 s are persisted, so the cache stays small for ordinary use.
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and this
+    leaves the cache alone.  Otherwise the cache goes to ``.jax_cache/`` at
+    the checkout root.  CPU-forced runs (tests, dev shells) skip the cache:
+    XLA:CPU entries are pinned to the machine's CPU features, and CPU
+    compiles are fast anyway.  Only compiles slower than 2 s are kept.
     """
-    cache_dir = _os.environ.get(
-        "SAFE_CONTROL_JAX_CACHE_DIR",
-        _os.path.join(
-            _os.path.expanduser("~"), ".cache", "safe_control_tpu", "jax_cache"
-        ),
-    )
-    if not cache_dir:
+    if _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
         return
-    # CPU-forced runs (tests, dev shells) skip the cache: XLA:CPU AOT
-    # entries are machine-feature-pinned (reloading on a different host
-    # warns and can SIGILL), and CPU compiles are fast anyway.  The cache
-    # pays off for TPU Mosaic kernel compiles (minutes each).
     if "cpu" in _os.environ.get("JAX_PLATFORMS", "").lower():
         return
-    try:
-        import jax
+    import jax
 
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    except Exception:  # never let cache config break imports
-        pass
+    jax.config.update("jax_compilation_cache_dir", _DEFAULT_CACHE_DIR)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
 
 
 _enable_persistent_compile_cache()

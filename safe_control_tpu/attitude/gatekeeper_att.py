@@ -1,6 +1,6 @@
 """Gatekeeper applied to the yaw channel (exploration-safety shielding).
 
-TPU-native re-implementation of
+JAX re-implementation of
 /root/reference/attitude_control/gatekeeper_attitude.py: the positional MPC
 prediction is shielded in the *yaw* channel so the camera keeps the part of
 the path that matters visible before the robot commits to it.

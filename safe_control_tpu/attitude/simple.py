@@ -1,6 +1,6 @@
 """Simple attitude (yaw side-channel) controllers.
 
-TPU-native equivalents of attitude_control/simple_attitude.py (constant yaw
+JAX equivalents of attitude_control/simple_attitude.py (constant yaw
 rate, :21) and attitude_control/velocity_tracking_yaw.py (P-control of yaw
 toward the velocity vector with optional acceleration preview, :35-64).
 """

@@ -1,6 +1,6 @@
 """Visibility-promoting yaw controllers over the occupancy-grid footprint.
 
-TPU-native re-implementations of the reference's shapely-based exploration
+JAX re-implementations of the reference's shapely-based exploration
 yaw controllers, operating on the fixed-shape occupancy footprint
 (perception/grid.py) instead of a GEOS polygon union:
 

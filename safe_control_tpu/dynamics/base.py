@@ -59,10 +59,8 @@ def masked_apply(x, fn, lo: int, hi: int):
     """Apply an elementwise ``fn`` to ``x[lo:hi]`` as a branch-free select.
 
     Equivalent to ``x.at[lo:hi].set(fn(x)[lo:hi])`` but lowers to an
-    iota-mask ``where`` instead of scatter — model ``step`` functions run
-    inside fused Pallas kernels (solvers/mpc_fused.py), and Mosaic has no
-    scatter lowering.  The mask is built from a COMPUTED iota, not a
-    constant array (Pallas rejects captured constants, and inside a
+    iota-mask ``where`` (elementwise, fusible) instead of a scatter.  The
+    mask is built from a COMPUTED iota, not a constant array (inside a
     ``lax.scan`` body a constant would become a hidden sub-jaxpr const).
     ``fn`` must be safe to evaluate on the whole vector (only the masked
     lanes are kept).

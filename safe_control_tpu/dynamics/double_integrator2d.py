@@ -1,6 +1,6 @@
 """DoubleIntegrator2D: X=[x, y, vx, vy], U=[ax, ay], relative degree 2.
 
-TPU-native re-implementation of the behavior of
+JAX re-implementation of the behavior of
 /root/reference/robots/double_integrator2D.py (f/g :46-77, step with
 velocity-norm clamp :79-107, nominal_input :113-140, stop :150-156,
 has_stopped :158-159, rotate_to :161-165).

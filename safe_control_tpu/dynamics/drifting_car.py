@@ -1,6 +1,6 @@
 """DriftingCar: global 8-state wrapper over DynamicBicycle2D.
 
-TPU-native re-implementation of /root/reference/robots/drifting_car.py:
+JAX re-implementation of the reference's robots/drifting_car.py:
 X = [x, y, theta, r, beta, V, delta, tau], U = [delta_dot, tau_dot].
 Kinematic coupling x_dot = V cos(theta+beta), y_dot = V sin(theta+beta),
 theta_dot = r (:474-530 step; note the reference advances position with the

@@ -1,6 +1,6 @@
 """DynamicBicycle2D: Fiala brush-tire model for high-slip (drifting) maneuvers.
 
-TPU-native re-implementation of /root/reference/robots/dynamic_bicycle2D.py:
+JAX re-implementation of the reference's robots/dynamic_bicycle2D.py:
 X = [r, beta, V, delta, tau] (body-fixed), U = [delta_dot, tau_dot].
 
 - slip angles with V-safe guard (:103-139)

@@ -1,6 +1,6 @@
 """DynamicUnicycle2D: X=[x, y, theta, v], U=[a, omega], relative degree 2.
 
-TPU-native re-implementation of the behavior of
+JAX re-implementation of the behavior of
 /root/reference/robots/dynamic_unicycle2D.py (f/g :42-73, step :75-78,
 nominal_input :80-104, stop :106-111, has_stopped :113-114, rotate_to
 :116-119).  This is the BASELINE benchmark model.

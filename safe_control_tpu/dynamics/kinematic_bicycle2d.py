@@ -1,6 +1,6 @@
 """KinematicBicycle2D: X=[x, y, theta, v], U=[a, beta_slip], relative degree 2.
 
-TPU-native re-implementation of the behavior of
+JAX re-implementation of the behavior of
 /root/reference/robots/kinematic_bicycle2D.py (slip-angle maps :55-65,
 f/g :75-110, step with v clip :112-123, nominal_input :125-147, stop :149-150,
 rotate_to :155-158).

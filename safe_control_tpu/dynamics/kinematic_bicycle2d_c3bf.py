@@ -1,6 +1,6 @@
 """KinematicBicycle2D with Collision-Cone CBF (C3BF) for dynamic obstacles.
 
-TPU-native re-implementation of
+JAX re-implementation of
 /root/reference/dynamic_env/kinematic_bicycle2D_c3bf.py: inherits the
 kinematic bicycle dynamics and overrides only the barrier with
 

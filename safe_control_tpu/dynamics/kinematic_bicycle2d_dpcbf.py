@@ -1,6 +1,6 @@
 """KinematicBicycle2D with Dynamic Parabolic CBF (DPCBF) for dynamic obstacles.
 
-TPU-native re-implementation of
+JAX re-implementation of
 /root/reference/dynamic_env/kinematic_bicycle2D_dpcbf.py (the flagship
 ICRA'26 novelty, dynamic_env/README.md): inherits the kinematic bicycle
 dynamics and overrides only the barrier.  In the line-of-sight frame

@@ -1,6 +1,6 @@
 """Manipulator2D: 3-link planar arm, X=[q1, q2, q3], U = joint velocities.
 
-TPU-native re-implementation of /root/reference/robots/manipulator2D.py:
+JAX re-implementation of the reference's robots/manipulator2D.py:
 kinematic dynamics q_dot = u (:27-42), forward kinematics (:44-61),
 IK P-control nominal input via the geometric Jacobian transpose (:107-124),
 and the per-link sampled-circle barrier: each link is discretized into

@@ -1,6 +1,6 @@
 """Quad2D planar quadrotor: X=[x, z, theta, vx, vz, w], U=[F_r, F_l], r=2.
 
-TPU-native re-implementation of /root/reference/robots/quad2D.py
+JAX re-implementation of the reference's robots/quad2D.py
 (f/g :46-81, Euler step :83-86, cascaded-PD nominal input :88-143,
 stop-by-hover :145-154, HOCBF r=2 circle barrier :166-206).
 """

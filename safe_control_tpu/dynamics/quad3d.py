@@ -1,6 +1,6 @@
 """Quad3D: linearized 6-DOF quadrotor, 12 states, 4 motor forces.
 
-TPU-native re-implementation of /root/reference/robots/quad3D.py:
+JAX re-implementation of the reference's robots/quad3D.py:
 X = [x, y, z, th, ph, ps, vx, vy, vz, q, p, r], A/B1·B2 structure (:73-97),
 RK4 integration (:121-158), pinv(B2) control allocation in
 nominal/stop/rotate (:160-267).  The continuous barrier is not defined

@@ -1,6 +1,6 @@
 """SingleIntegrator2D: X=[x, y], U=[vx, vy], relative degree 1.
 
-TPU-native re-implementation of the behavior of
+JAX re-implementation of the behavior of
 /root/reference/robots/single_integrator2D.py (f/g :44-62, step :64-66,
 nominal_input :72-89, stop :99-102, rotate_to :108-112).  The yaw
 side-channel (``step_rotate`` :68-70) lives in the sim layer, not here.

@@ -1,6 +1,6 @@
 """Unicycle2D: X=[x, y, theta], U=[v, omega], relative degree 1.
 
-TPU-native re-implementation of the behavior of
+JAX re-implementation of the behavior of
 /root/reference/robots/unicycle2D.py (f/g :43-63, step :65-68,
 nominal_input :70-86, rotate_to :95-98, sigma heading shaping :100-105).
 """

@@ -1,6 +1,6 @@
 """VTOL2D: X=[x, z, theta, vx, vz, w], U=[d_front, d_rear, d_pusher, d_elev].
 
-TPU-native re-implementation of /root/reference/robots/vtol2D.py — full 2-D
+JAX re-implementation of the reference's robots/vtol2D.py — full 2-D
 aero: body-frame velocity/angle of attack (:333-342), blended linear /
 flat-plate lift with sigmoid stall transition (:347-371), lift/drag/moment
 (:373-402), wind->inertial rotation by theta+alpha (:411-420), three linear

@@ -1,6 +1,6 @@
 """Drifting environment: tracks, lanes, friction puddles, obstacle cars.
 
-TPU-native re-implementation of /root/reference/envs/drifting_env.py: track
+JAX re-implementation of the reference's envs/drifting_env.py: track
 generation stays host-side NumPy (straight :90-119, oval :139-178, L-shape
 :179-227, multi-lane geometry :105-113); all per-step queries are pure jnp
 functions over fixed-shape arrays so the gatekeeper/MPCC can batch them —

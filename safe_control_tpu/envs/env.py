@@ -1,6 +1,6 @@
 """Rectangular workspace environment.
 
-TPU-native re-implementation of /root/reference/utils/env.py: boundary
+JAX re-implementation of the reference's utils/env.py: boundary
 strips (:49-60), circle / superellipsoid obstacle lists split by flag
 (:73-92), and the grid discretization helpers (:16-47) — here the grid is a
 static shape used by the occupancy-based perception (perception/grid.py).

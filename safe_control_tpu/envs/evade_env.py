@@ -1,6 +1,6 @@
 """Evade environment: hallway + safe pocket + goal + "bullet bill" obstacle.
 
-TPU-native re-implementation of /root/reference/envs/evade_env.py: the
+JAX re-implementation of the reference's envs/evade_env.py: the
 geometry is a frozen config and every query is a pure jnp function so the
 gatekeeper can evaluate thousands of candidate steps in one batch —
 boundary collision with the pocket cutout (:408-452), rect-vs-circle bullet

@@ -1,6 +1,6 @@
 """Warehouse environment: 100x100 grid world, static obstacles, "ghosts".
 
-TPU-native re-implementation of /root/reference/envs/warehouse_env.py: a
+JAX re-implementation of the reference's envs/warehouse_env.py: a
 4x4 grid of circular static obstacles (:31-41), leveled moving "ghost"
 obstacles that bounce off the walls (:60-266, :267-277), start (10,10) /
 goal (90,90) and the zig-zag nominal waypoint path (:333-343).  Ghost

@@ -2,7 +2,7 @@
 
 BASELINE.json anchor config 5: a heterogeneous multi-robot fleet
 (unicycle + bicycle + quad + ...) with shielding, thousands of agents
-batched across a pod slice.  Model dispatch is static (jit specializes per
+batched across devices.  Model dispatch is static (jit specializes per
 model), so a heterogeneous fleet is a *struct of homogeneous groups*: one
 vmapped scan per model family, all inside one jit — XLA schedules the
 groups' programs back-to-back on the chip, and a shared obstacle set
@@ -486,9 +486,9 @@ def step_fleet_shielded_sharded(
 ) -> ShieldedFleetState:
     """Multi-chip ``step_fleet_shielded``: robots sharded over the scenario
     mesh, with the fleet-wide neighbor snapshot assembled by an
-    ``all_gather`` riding ICI.
+    ``all_gather`` over the mesh.
 
-    This is BASELINE anchor config 5 at pod scale: every group's robot axis
+    This is BASELINE anchor config 5 across devices: every group's robot axis
     is block-sharded (counts must divide the mesh size); each device
     computes its local robots' snapshot rows ([x, y, radius] + the shared
     committed-position table, see ``step_fleet_shielded``), one tiled
@@ -497,7 +497,6 @@ def step_fleet_shielded_sharded(
     in the single-device path — the collective is the ONLY cross-device
     communication per chunk.
     """
-    from jax.experimental.shard_map import shard_map
     from jax.sharding import PartitionSpec as P
 
     from safe_control_tpu.parallel.mesh import SCENARIO_AXIS
@@ -623,12 +622,12 @@ def step_fleet_shielded_sharded(
             backup_steps=tuple(new_bk), commits=tuple(new_cm),
         )
 
-    return shard_map(
+    return jax.shard_map(
         body,
         mesh=mesh,
         in_specs=(P(SCENARIO_AXIS), P(SCENARIO_AXIS), P()),
         out_specs=P(SCENARIO_AXIS),
-        check_rep=False,
+        check_vma=False,
     )(state, tuple(waypoints_list), known_obs)
 
 

@@ -3,13 +3,14 @@
 The reference has no parallelism of any kind (SURVEY.md §2.5): multi-robot
 means sequential ``control_step()`` calls in one Python loop
 (examples/test_multi_robot.py:77-84) and Monte-Carlo means re-running the
-script.  The TPU-native scale-out story (BASELINE.json north star):
+script.  The scale-out story here:
 
-- **batch axis** = robots / scenarios, ``vmap``-ed on chip;
-- **mesh axis** ``'scenario'`` = chips (ICI within a slice, DCN across
-  hosts), sharded with ``NamedSharding``/``shard_map``;
+- **batch axis** = robots / scenarios, ``vmap``-ed on each device;
+- **mesh axis** ``'scenario'`` = devices, 1-D over ``jax.devices()``
+  (NVLink joins a host's GPUs all to all, so the mesh follows the
+  algorithm alone), sharded with ``NamedSharding``/``jax.shard_map``;
 - cross-scenario reductions (Monte-Carlo statistics, fleet-level minima)
-  ride ``psum`` over ICI.
+  ride ``psum``, which XLA hands to NCCL.
 
 No TP/PP/EP/ring-attention analog exists for this workload — the per-robot
 state is a handful of scalars, there are no large weight matrices and no
@@ -23,7 +24,6 @@ from typing import Optional
 
 import jax
 import numpy as np
-from jax.experimental.shard_map import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 SCENARIO_AXIS = "scenario"
@@ -54,7 +54,7 @@ def sharded_batch_apply(mesh: Mesh, fn, reduce_stats=None):
 
     ``fn`` maps a local batch pytree -> (local outputs, local stats);
     ``reduce_stats`` (optional) maps stats -> stats via ``psum``-style
-    collectives, e.g. Monte-Carlo success counts summed over ICI.
+    collectives, e.g. Monte-Carlo success counts summed over the mesh.
     """
 
     def wrapped(batch):
@@ -63,12 +63,12 @@ def sharded_batch_apply(mesh: Mesh, fn, reduce_stats=None):
             stats = reduce_stats(stats)
         return out, stats
 
-    return shard_map(
+    return jax.shard_map(
         wrapped,
         mesh=mesh,
         in_specs=(P(SCENARIO_AXIS),),
         out_specs=(P(SCENARIO_AXIS), P()),
-        check_rep=False,
+        check_vma=False,
     )
 
 

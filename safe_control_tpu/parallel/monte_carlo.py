@@ -2,8 +2,8 @@
 
 The reference runs Monte-Carlo by re-executing a script per scenario
 (SURVEY.md §2.5); here a sweep is ONE program: scenarios are a batch axis
-(``vmap``), chips are a mesh axis (``shard_map`` over 'scenario'), and the
-success statistics ride a ``psum`` over ICI (BASELINE.json anchor configs:
+(``vmap``), devices are a mesh axis (``shard_map`` over 'scenario'), and the
+success statistics ride a ``psum`` over the mesh (BASELINE.json anchor configs:
 1k-scenario DPCBF dynamic-obstacle sweep; 4k-agent fleets).
 
 Checkpoint/resume: the sweep state (tracker states, obstacle arrays,
@@ -130,7 +130,6 @@ def run_sharded_sweep(
     size.  The per-chunk structure keeps the program small and gives natural
     checkpoint boundaries.
     """
-    from jax.experimental.shard_map import shard_map
 
     data = NamedSharding(mesh, P(SCENARIO_AXIS))
 
@@ -140,12 +139,12 @@ def run_sharded_sweep(
         s, c = sweep_stats(st, SCENARIO_AXIS)
         return st.tracker, st.obs, s, c
 
-    sharded = shard_map(
+    sharded = jax.shard_map(
         chunk_fn,
         mesh=mesh,
         in_specs=(P(SCENARIO_AXIS), P(SCENARIO_AXIS)),
         out_specs=(P(SCENARIO_AXIS), P(SCENARIO_AXIS), P(), P()),
-        check_rep=False,
+        check_vma=False,
     )
     sharded = jax.jit(sharded)
 

@@ -1,6 +1,6 @@
 """Field-of-view sensing: detection, membership, persistent obstacle memory.
 
-TPU-native re-implementation of the reference's RGB-D FoV simulation:
+JAX re-implementation of the reference's RGB-D FoV simulation:
 
 - circle-vs-sector intersection incl. the angular-radius term
   (utils/detection.py:28-43)

@@ -1,6 +1,6 @@
 """Occupancy-grid sensing footprint and braking-distance safety area.
 
-TPU-native replacement of the reference's shapely polygon machinery
+JAX replacement of the reference's shapely polygon machinery
 (robots/robot.py:646-753, utils/geometry.py custom_merge): the unboundedly
 growing polygon union of FoV triangles becomes a fixed-shape boolean
 occupancy grid that is OR-updated in place each step — an O(cells)

@@ -1,6 +1,6 @@
 """Backup policies: simple closed-loop controllers that can be rolled out.
 
-TPU-native re-implementation of
+JAX re-implementation of
 /root/reference/position_control/backup_controller.py — each policy is a
 pure function ``u = policy(x, spec)`` so candidate trajectories roll out
 under ``lax.scan`` and batch under ``vmap`` (the reference forward-simulates

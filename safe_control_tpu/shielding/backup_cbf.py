@@ -1,6 +1,6 @@
 """BackupCBF: backup-policy CBF-QP with exact sensitivity propagation.
 
-TPU-native re-implementation of
+JAX re-implementation of
 /root/reference/position_control/backup_cbf_qp.py.  The reference rolls out
 the backup policy and propagates sensitivity matrices S_k by an
 n-dimensional finite-difference loop per step (:283-316 — ~N*n dynamics
@@ -36,6 +36,7 @@ import jax.numpy as jnp
 
 from safe_control_tpu.dynamics import get_model
 from safe_control_tpu.solvers.qp import solve_qp
+from safe_control_tpu.solvers.precision import highest
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +65,7 @@ def _q_u(model_name: str, m: int):
     return jnp.ones((m,))
 
 
+@highest
 def solve(
     cfg: BackupCBFConfig,
     spec,

@@ -1,6 +1,6 @@
 """Gatekeeper / MPS shielding: infinite-time safety via committed trajectories.
 
-TPU-native re-implementation of /root/reference/shielding/gatekeeper.py and
+JAX re-implementation of the reference's shielding/gatekeeper.py and
 shielding/mps.py.  The committed trajectory = a nominal prefix + a backup
 suffix; at events, the reference runs a sequential backward search over
 nominal horizons, rolling out and validating one candidate at a time

@@ -1,6 +1,6 @@
 """DriftingCarSimulator: reusable collision-checked drift-car sim loop.
 
-TPU-native analog of /root/reference/robots/drifting_car.py:654-752
+JAX analog of the reference's robots/drifting_car.py:654-752
 (``DriftingCarSimulator``) plus the shielded control pipeline that the
 reference's drift examples re-assemble by hand (examples/drift_car/
 test_drift.py:433-523): per step,

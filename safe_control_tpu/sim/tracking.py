@@ -1,6 +1,6 @@
 """Waypoint-tracking orchestration: the reference's state machine, functional.
 
-TPU-native re-implementation of /root/reference/tracking.py
+JAX re-implementation of the reference's tracking.py
 ``LocalTrackingController``: the idle/track/stop/rotate state machine
 (:49, 559-668), waypoint advance (:497-535), nearest-unpassed obstacle
 selection with per-model angular windows (:345-403), perception hookup
@@ -409,7 +409,7 @@ def step(
         mpc_state = state.mpc
     elif cfg.uses_mpc:
         goal_full = jnp.zeros((model.N_STATES,), dtype=dtype).at[:2].set(wp)
-        res = mpc_mod.solve_dispatch(
+        res = mpc_mod.solve(
             cfg.model_name,
             spec,
             x,

@@ -5,7 +5,7 @@ minimize ||residual(U)||^2 subject to constraints(U) >= 0 and box bounds on
 the flat decision vector, with
 
 - forward-mode-only derivatives (reverse AD through a rollout scan is a
-  multi-minute TPU compile — measured; closed forms: grad = 2 Jr'r - Jc'act,
+  multi-minute XLA compile; closed forms: grad = 2 Jr'r - Jc'act,
   H = 2 Jr'Jr + rho Jc_a'Jc_a),
 - constraint rows normalized by their warm-start gradient norms,
 - projected Newton with free-set masking at active box bounds,
@@ -30,6 +30,7 @@ from safe_control_tpu.solvers.chol import (
     _chol_solve_blocked,
     _chol_solve_unrolled,
 )
+from safe_control_tpu.solvers.precision import highest
 
 
 class ALGNConfig(NamedTuple):
@@ -41,6 +42,7 @@ class ALGNConfig(NamedTuple):
     reg: float = 1e-6
 
 
+@highest
 def solve(
     residual: Callable,
     constraints: Callable,

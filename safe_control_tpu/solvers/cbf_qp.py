@@ -1,4 +1,4 @@
-"""Continuous-time CBF-QP safety filter (batched, TPU-native).
+"""Continuous-time CBF-QP safety filter (batched).
 
 Behavioral equivalent of /root/reference/position_control/cbf_qp.py:
 
@@ -24,6 +24,7 @@ import jax.numpy as jnp
 from safe_control_tpu.barriers.hocbf import ct_cbf_row
 from safe_control_tpu.core.types import is_dummy
 from safe_control_tpu.dynamics import get_model
+from safe_control_tpu.solvers.precision import highest
 from safe_control_tpu.solvers.qp import solve_qp
 
 
@@ -73,6 +74,7 @@ def _result(sol, a_rows, b_vals, dummy) -> CBFQPResult:
     return CBFQPResult(u=sol.x, feasible=feasible, h_min=h_min)
 
 
+@highest
 def solve(
     model_name: str,
     spec,
@@ -92,6 +94,28 @@ def solve(
     return _result(sol, a_rows, b_vals, dummy)
 
 
+# The region where the Pallas ADMM kernel was measured faster than the
+# vmapped XLA loop on the card (PERF.md; chip_smoke.py phase d measures its
+# corners): batches from 128 problems, up to 16 constraint rows.  Larger
+# row counts (the manipulator's ~150) were not measured: one problem's data
+# no longer fits a thread's registers.
+KERNEL_MIN_BATCH = 128
+KERNEL_MAX_ROWS = 16
+
+
+def pick_backend(n_batch: int, n_rows: int) -> str:
+    """``backend="auto"``: the kernel only on the GPU, only where measured
+    faster than XLA."""
+    if (
+        jax.default_backend() == "gpu"
+        and n_batch >= KERNEL_MIN_BATCH
+        and n_rows <= KERNEL_MAX_ROWS
+    ):
+        return "pallas"
+    return "xla"
+
+
+@highest
 def solve_batch(
     model_name: str,
     spec,
@@ -100,39 +124,39 @@ def solve_batch(
     obs_batch,
     dt: float,
     backend: str = "auto",
+    interpret: bool = False,
     **kw,
 ):
     """vmap over robots; ``spec`` may itself be batched for heterogeneity.
 
     ``backend``: 'xla' vmaps the fori-loop ADMM (solvers/qp.py); 'pallas'
-    assembles all QPs then runs the lane-batched Pallas ADMM kernel
-    (solvers/qp_kernel.py) — ~2x faster per solve on TPU at equal accuracy;
-    'auto' picks pallas on TPU for batches big enough to fill a lane tile.
+    assembles all QPs then runs the Pallas ADMM kernel on the GPU
+    (solvers/qp_kernel.py; elsewhere it raises, unless ``interpret`` — for
+    tests — runs it in the interpreter); 'auto' follows ``pick_backend``.
     """
+    model = get_model(model_name)
+    mode = kw.pop("mode", "cbf")
+    in_axes = (None, 0, 0, 0) if not _is_batched(spec) else (0, 0, 0, 0)
+    assemble = jax.vmap(
+        lambda s, x, ur, ob: _assemble(model, model_name, s, x, ur, ob, dt, mode),
+        in_axes=in_axes,
+    )
     if backend == "auto":
-        n_batch = xs.shape[0]
-        backend = (
-            "pallas"
-            if jax.default_backend() == "tpu" and n_batch >= 128
-            else "xla"
-        )
+        n_rows = jax.eval_shape(assemble, spec, xs, u_refs, obs_batch)[2].shape[1]
+        backend = pick_backend(xs.shape[0], n_rows)
     if backend == "pallas":
         from safe_control_tpu.solvers.qp_kernel import solve_qp_batch_pallas
 
-        model = get_model(model_name)
-        mode = kw.pop("mode", "cbf")
-        iters = kw.pop("iters", 1600)
-        in_axes = (None, 0, 0, 0) if not _is_batched(spec) else (0, 0, 0, 0)
-        P, q, A, l, u_up, a_rows, b_vals, dummy = jax.vmap(
-            lambda s, x, ur, ob: _assemble(
-                model, model_name, s, x, ur, ob, dt, mode
-            ),
-            in_axes=in_axes,
-        )(spec, xs, u_refs, obs_batch)
-        sols = solve_qp_batch_pallas(P, q, A, l, u_up, iters=iters)
+        P, q, A, l, u_up, a_rows, b_vals, dummy = assemble(
+            spec, xs, u_refs, obs_batch
+        )
+        sols = solve_qp_batch_pallas(
+            P, q, A, l, u_up, iters=kw.pop("iters", 1600), interpret=interpret
+        )
         return jax.vmap(_result)(sols, a_rows, b_vals, dummy)
-    in_axes = (None, 0, 0, 0) if not _is_batched(spec) else (0, 0, 0, 0)
-    fn = lambda s, x, ur, ob: solve(model_name, s, x, ur, ob, dt, **kw)
+    if backend != "xla":
+        raise ValueError(f"unknown backend {backend!r}")
+    fn = lambda s, x, ur, ob: solve(model_name, s, x, ur, ob, dt, mode=mode, **kw)
     return jax.vmap(fn, in_axes=in_axes)(spec, xs, u_refs, obs_batch)
 
 

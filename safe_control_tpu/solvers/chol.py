@@ -1,15 +1,16 @@
 """Tiered SPD solves for the AL-Gauss-Newton engines.
 
-XLA lowers batched ``cho_factor``/``cho_solve`` on TPU as a sequential
-masked loop plus batched triangular solves — a long serial chain that
-dominates vmapped MPC solves at D=16..120.  Three regimes instead:
+Batched ``cho_factor``/``cho_solve`` under ``vmap`` is a library call with
+a serial chain per problem; these tiers unroll the factorization at trace
+time instead, so it fuses with the rest of the solve.  The tier bounds are
+open for re-measurement on the GPU (ROADMAP S4).  Three regimes:
 
 - D <= _UNROLL_CHOL_MAX: fully-scalar trace-time unroll (~D^3/6 fused ops,
-  each a (batch,)-wide VPU op under ``vmap`` — the Pallas QP kernel trick,
-  solvers/qp_kernel.py:46-76).
+  each a (batch,)-wide elementwise op under ``vmap`` — the Pallas QP
+  kernel's ``_chol``, solvers/qp_kernel.py).
 - D <= _BLOCKED_CHOL_MAX: blocked unroll (8x8 blocks): D/8 tiny diagonal
   factorizations chained with triangular solves and rank-k updates that are
-  (8, 8) matmuls — batched MXU work under ``vmap``, O((D/8)^3) trace ops.
+  (8, 8) matmuls — batched matmuls under ``vmap``, O((D/8)^3) trace ops.
 - above: fall back to ``cho_factor`` (nothing in the repo needs it).
 
 ``chol_factor``/``chol_sub`` split factorization from substitution for
@@ -21,6 +22,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
+from safe_control_tpu.solvers.precision import highest
+
 
 _UNROLL_CHOL_MAX = 40  # fully-scalar unroll of the Newton solve up to here
 _BLOCKED_CHOL_MAX = 192  # blocked unroll above that (VTOL N=30 -> 120 vars)
@@ -30,12 +33,10 @@ _CHOL_BLOCK = 8  # block edge for the blocked factorization
 def _chol_solve_unrolled(H, g):
     """Solve H x = g (SPD) with a trace-time-unrolled Cholesky.
 
-    XLA lowers batched ``cho_factor``/``cho_solve`` on TPU as a sequential
-    masked loop plus batched triangular solves — a long serial chain that
-    dominates the vmapped MPC solve at D=16..24.  Unrolling at trace time
-    turns the factorization into ~D^3/6 independent fused scalar ops, each of
-    which is a (batch,)-wide VPU op under ``vmap`` — the same trick as the
-    Pallas QP kernel's ``_chol`` (solvers/qp_kernel.py:46-76).
+    Unrolling at trace time turns the factorization into ~D^3/6 fused
+    scalar ops, each of which is a (batch,)-wide elementwise op under
+    ``vmap`` — the same trick as the Pallas QP kernel's ``_chol``
+    (solvers/qp_kernel.py).
     """
     D = H.shape[0]
     L = [[None] * D for _ in range(D)]
@@ -82,18 +83,18 @@ def _dense_chol_unrolled(A):
     )
 
 
+@highest
 def _chol_solve_blocked(H, g, block=_CHOL_BLOCK):
     """Solve H x = g (SPD) via a trace-time-unrolled *blocked* Cholesky.
 
     The fully-scalar unroll (``_chol_solve_unrolled``) emits ~D^3/6 jaxpr ops
     — fine at D<=40, minutes of tracing at the VTOL/MPCC sizes (N=30, m=4 ->
-    D=120).  XLA's batched ``cho_factor`` is the other extreme: a sequential
-    masked loop that dominates the vmapped solve on TPU.  Blocking at
-    ``block`` is the middle ground the hardware wants: D/block diagonal
+    D=120).  The batched ``cho_factor`` library call is the other extreme.
+    Blocking at ``block`` is the middle ground: D/block diagonal
     factorizations (tiny scalar unrolls) chained with triangular solves and
     symmetric-rank-k updates that are (block, block) matmuls — each a
-    *batched* matmul under ``vmap``, i.e. MXU work instead of a scalar
-    dependency chain.  Trace cost is O((D/block)^3) block ops (~600 matmuls
+    *batched* matmul under ``vmap`` instead of a scalar dependency
+    chain.  Trace cost is O((D/block)^3) block ops (~600 matmuls
     at D=120), not O(D^3) scalar ops.
     """
     D = H.shape[0]
@@ -161,6 +162,7 @@ def _chol_solve_blocked(H, g, block=_CHOL_BLOCK):
     return jnp.concatenate(x)[:D]
 
 
+@highest
 def _chol_factor(H):
     """Lower-Cholesky factor as a dense matrix, trace-time unrolled.
 

@@ -1,6 +1,6 @@
 """MPCC — model-predictive contouring control for the drift car.
 
-TPU-native re-implementation of /root/reference/position_control/mpcc.py:
+JAX re-implementation of the reference's position_control/mpcc.py:
 augmented 9-state [x, y, theta, r, beta, V, delta, tau, psi] with
 path-progress input v_psi (:50-53, :150-159); contouring / lag / heading /
 velocity / yaw-rate stage costs against path references sampled at
@@ -24,6 +24,7 @@ import jax.numpy as jnp
 from safe_control_tpu.core.types import angle_normalize
 from safe_control_tpu.dynamics import dynamic_bicycle2d as dyn
 from safe_control_tpu.solvers import al_gn
+from safe_control_tpu.solvers.precision import highest
 
 N_CONTROLS = 3  # [delta_dot, tau_dot, v_psi]
 
@@ -49,8 +50,8 @@ class MPCCConfig:
     al: al_gn.ALGNConfig = al_gn.ALGNConfig()
     # Rollout-scan unroll factor — same dispatch-latency knob as
     # MPCConfig.scan_unroll (the N-step rollout is a serial chain of small
-    # kernels; at batch=1 XLA fusion across unrolled steps is a measured
-    # win on TPU, PERF.md round 5).  Keep 1 for batched/throughput use.
+    # kernels; at batch=1 XLA can fuse across unrolled steps).  Keep 1 for
+    # batched/throughput use.
     scan_unroll: int = 1
 
 
@@ -136,6 +137,7 @@ def _aug_step(x9, u3, spec, dt):
     )
 
 
+@highest
 def solve(
     spec,
     x8,  # (8,) DriftingCar global state

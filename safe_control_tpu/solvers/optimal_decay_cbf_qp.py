@@ -1,6 +1,6 @@
 """Optimal-decay CBF-QP: decay-rate relaxation for pointwise feasibility.
 
-TPU-native re-implementation of
+JAX re-implementation of
 /root/reference/position_control/optimal_decay_cbf_qp.py: the CBF row's
 class-K gains are multiplied by decision variables omega1, omega2 that are
 softly pinned to 1 with penalty p_sb = 1e4 (:56-130), which guarantees the
@@ -27,6 +27,7 @@ from safe_control_tpu.barriers import hocbf
 from safe_control_tpu.core.types import is_dummy
 from safe_control_tpu.dynamics import get_model
 from safe_control_tpu.solvers.qp import solve_qp
+from safe_control_tpu.solvers.precision import highest
 
 # Reference gains (:14-52): alpha = 0.5, omega ref 1.0, p_sb 1e4.
 ALPHA1 = 0.5
@@ -43,6 +44,7 @@ class ODCBFResult(NamedTuple):
     feasible: jnp.ndarray
 
 
+@highest
 def solve(model_name: str, spec, x, u_ref, nearest_obs, dt, iters: int = 1600):
     """One optimal-decay CBF-QP solve for the nearest obstacle (7-vector)."""
     model = get_model(model_name)

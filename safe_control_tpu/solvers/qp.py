@@ -4,7 +4,7 @@ The reference ships every control-step QP to Gurobi/OSQP via cvxpy
 (cbf_qp.py:190, backup_cbf_qp.py:737-744) — one 2-4 variable, <=150 row dense
 QP at a time on the host.  Here the solver is a fixed-iteration, branch-free
 ADMM written in pure JAX so that thousands of independent QPs run batched on
-one TPU chip via ``vmap`` (the reference's "native dependency" this replaces,
+one device via ``vmap`` (the reference's "native dependency" this replaces,
 SURVEY.md §2.4).
 
 Problem form (OSQP convention):
@@ -27,6 +27,8 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
+from safe_control_tpu.solvers.precision import highest
+
 
 class QPSolution(NamedTuple):
     x: jnp.ndarray  # (n,) primal solution
@@ -35,6 +37,7 @@ class QPSolution(NamedTuple):
     dual_res: jnp.ndarray  # scalar, ||Px + q + A'y||_inf
 
 
+@highest
 def solve_qp(
     P,
     q,

@@ -1,72 +1,74 @@
-"""Pallas TPU kernel: batched dense QP ADMM sweep, fully resident in VMEM.
+"""Pallas kernel (Triton route): batched dense QP ADMM, one problem per thread.
 
-This is the hot op behind every CBF-QP / optimal-decay / BackupCBF control
-step (SURVEY.md §2.4: the Gurobi/OSQP role).  The pure-XLA path
-(solvers/qp.py) vmaps a ``fori_loop`` whose per-iteration state round-trips
-through HBM and whose tiny batched Cholesky solves XLA lowers poorly on TPU.
-Here ONE kernel invocation runs the entire staged-ADMM iteration loop for a
-tile of problems, with
+This is the hot op behind every CBF-QP control step (SURVEY.md §2.4: the
+Gurobi/OSQP role).  The XLA path (solvers/qp.py under ``vmap``) runs the
+ADMM sweeps as a 1,600-trip ``fori_loop``: a While loop whose small fused
+body is launched once per trip.  Here ONE kernel launch runs the whole
+staged-ADMM iteration loop, with
 
-- problems laid out across *lanes* (tile = ``B_TILE`` problems, every scalar
-  of the ADMM state is a ``(B_TILE,)`` vector => full 8x128 VPU utilization),
-- the n x n KKT factorization unrolled at trace time (n <= 8: closed-form
-  Cholesky on per-lane scalars — no batched-triangular-solve lowering),
-- all iteration state (x, z, y, rho) living in VMEM/registers for the whole
-  solve: zero HBM traffic between iterations.
+- one problem per GPU thread: every scalar of a problem is one element of a
+  ``(tile,)`` vector, so the iteration state (x, z, y, rho) and the problem
+  data stay in registers for the whole solve (a warp holds 32 problems);
+- the n x n KKT factorization unrolled at trace time (closed-form Cholesky
+  on per-thread scalars).
 
 Equilibration and the one-shot active-set polish stay in plain JAX around the
 kernel (they run once, not ``iters`` times).  Math is identical to
 solvers/qp.py: OSQP-convention ADMM with over-relaxation and per-stage
-adaptive rho.
+adaptive rho.  ``interpret=True`` runs the same kernel on the CPU for tests.
 
-On non-TPU backends the kernel runs in Pallas interpreter mode, so the same
-code path is testable on the CPU mesh (SURVEY.md §4).
+Problems are laid out lane-major: one ``(rows, batch)`` array whose batch
+axis is padded to a multiple of the tile, which Triton needs as a power of
+two.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
+from safe_control_tpu.solvers.precision import highest
 from safe_control_tpu.solvers.qp import QPSolution, _polish
 
-B_TILE = 1024  # problems per kernel instance; (B_TILE,) vectors = (8,128) VPU tiles
 N_STAGES = 8  # adaptive-rho refactorization points (matches qp.py)
-VMEM_BUDGET_BYTES = 4 * 1024 * 1024  # ~1/4 of a v5e core's VMEM: leaves room
-# for the unrolled Cholesky/RHS temporaries, which roughly double the
-# resident set counted in ``_tile_for``.
+# One warp per program, one problem per thread: the launch measured on the
+# card (batches 128 and 4,096).  Registers, not shared memory, bound what a
+# thread holds, so the tile never shrinks below a warp.
+TILE = 32
+NUM_WARPS = 1
 
 
-def _tile_for(n: int, m: int, n_batch: int) -> int:
-    """Row-aware lane-tile size.
+def require_gpu() -> None:
+    """Raise unless JAX's default backend is the GPU the kernel compiles for."""
+    backend = jax.default_backend()
+    if backend != "gpu":
+        raise RuntimeError(
+            "solve_qp_batch_pallas is a Pallas kernel for the GPU (Triton "
+            f"route); the JAX backend is {backend!r}.  Use the XLA path "
+            "(solvers/qp.py) on this backend."
+        )
 
-    The kernel holds per-lane: A (m*n rows), P (n*n), q (n), l/u (2m) as
-    inputs plus x/z/y/rho/RHS/L state (~n*n + 2n + 3m registers/VMEM rows).
-    At manipulator scale (m~153 rows, tracking.py:134-138) the default 1024
-    lanes would need >5x the fp32 VMEM of the n<=4, m<=13 CBF-QP case, so the
-    tile shrinks to keep the resident set under ``VMEM_BUDGET_BYTES`` —
-    without this the kernel fails to fit (or silently spills) at large m.
+
+def lane_major(parts, tile: int):
+    """Pack ``(B, ...)`` arrays into one ``(sum of row widths, Bp)`` array.
+
+    The batch is zero-padded to ``Bp``, a multiple of ``tile``; the kernel
+    keeps zero problems finite (their outputs are dropped).
     """
-    rows = (m * n) + 2 * (n * n) + 3 * n + 7 * m + 4  # inputs + outputs + state
-    tile = VMEM_BUDGET_BYTES // (rows * 4)
-    tile = min(B_TILE, (tile // 128) * 128)
-    tile = max(tile, 128)
-    if n_batch < tile:
-        tile = max(((n_batch + 127) // 128) * 128, 128)
-    return tile
+    x = jnp.concatenate([p.reshape(p.shape[0], -1) for p in parts], axis=1)
+    pad = (-x.shape[0]) % tile
+    return jnp.pad(x, ((0, pad), (0, 0))).T
 
 
 def _chol(K, n):
-    """Unrolled Cholesky of an n x n SPD matrix of per-lane scalars.
+    """Unrolled Cholesky of an n x n SPD matrix of per-thread scalars.
 
-    ``K`` is a list-of-lists of (B,) vectors; returns lower-triangular L in
-    the same representation.  n is static and tiny, so this is ~n^3/6 fused
-    VPU ops — the shape XLA's batched cho_factor never reaches on TPU.
+    ``K`` is a list-of-lists of (tile,) vectors; returns lower-triangular L
+    in the same representation.
     """
     L = [[None] * n for _ in range(n)]
     for i in range(n):
@@ -98,17 +100,30 @@ def _chol_solve(L, b, n):
     return x
 
 
-def _admm_kernel(
-    p_ref, q_ref, a_ref, l_ref, u_ref, x_out, y_out,
-    *, n, m, iters, rho0, sigma, alpha,
-):
-    """Staged ADMM for one tile of problems (all refs lane-batched)."""
-    dtype = q_ref.dtype
-    A = [[a_ref[j * n + i] for i in range(n)] for j in range(m)]  # (B,) each
-    P = [[p_ref[i * n + j] for j in range(n)] for i in range(n)]
-    q = [q_ref[i] for i in range(n)]
-    lo = l_ref[:]  # (m, B)
-    hi = u_ref[:]
+def _matvec(A, x, rows, cols):
+    out = []
+    for j in range(rows):
+        s = A[j][0] * x[0]
+        for i in range(1, cols):
+            s = s + A[j][i] * x[i]
+        out.append(s)
+    return out
+
+
+def _admm_kernel(in_ref, x_out, y_out, *, n, m, iters, rho0, sigma, alpha):
+    """Staged ADMM for one tile of problems.
+
+    ``in_ref`` rows: P (n*n, row-major), q (n), A (m*n, row-major), l (m),
+    u (m).  Outputs: x (n rows), y (m rows), still in scaled variables.
+    """
+    o_p, o_q, o_a = 0, n * n, n * n + n
+    o_l = o_a + m * n
+    o_u = o_l + m
+    P = [[in_ref[o_p + i * n + j] for j in range(n)] for i in range(n)]
+    q = [in_ref[o_q + i] for i in range(n)]
+    A = [[in_ref[o_a + j * n + i] for i in range(n)] for j in range(m)]
+    lo = [in_ref[o_l + j] for j in range(m)]
+    hi = [in_ref[o_u + j] for j in range(m)]
 
     # A'A once (symmetric): n^2 m FMAs.
     AtA = [[None] * n for _ in range(n)]
@@ -120,15 +135,16 @@ def _admm_kernel(
             AtA[i][j] = s
             AtA[j][i] = s
 
-    B = q[0].shape[0]
-    x = jnp.zeros((n, B), dtype)
-    z = jnp.zeros((m, B), dtype)
-    y = jnp.zeros((m, B), dtype)
-    rho = jnp.full((B,), rho0, dtype)
+    zero = jnp.zeros_like(q[0])
+    x = [zero] * n
+    z = [zero] * m
+    y = [zero] * m
+    rho = jnp.full_like(q[0], rho0)
     per_stage = max(iters // N_STAGES, 1)
 
-    for _stage in range(N_STAGES):
-        # Refactor K = P + sigma I + rho A'A at the current (per-lane) rho.
+    def stage(_, carry):
+        x, z, y, rho = carry
+        # Refactor K = P + sigma I + rho A'A at the current (per-problem) rho.
         K = [
             [
                 P[i][j] + rho * AtA[i][j] + (sigma if i == j else 0.0)
@@ -138,66 +154,62 @@ def _admm_kernel(
         ]
         L = _chol(K, n)
 
-        def body(_, carry, L=L):
+        def body(_, carry):
             x, z, y = carry
-            xl = [x[i] for i in range(n)]
-            zl = [z[j] for j in range(m)]
-            yl = [y[j] for j in range(m)]
             # rhs = sigma x - q + A'(rho z - y)
-            w = [rho * zl[j] - yl[j] for j in range(m)]
+            w = [rho * z[j] - y[j] for j in range(m)]
             rhs = []
             for i in range(n):
-                s = sigma * xl[i] - q[i]
+                s = sigma * x[i] - q[i]
                 for j in range(m):
                     s = s + A[j][i] * w[j]
                 rhs.append(s)
             xt = _chol_solve(L, rhs, n)
-            x_new = jnp.stack([alpha * xt[i] + (1.0 - alpha) * xl[i] for i in range(n)])
+            x_new = [alpha * xt[i] + (1.0 - alpha) * x[i] for i in range(n)]
             # z update with over-relaxation + projection
-            zt = []
+            zt = _matvec(A, xt, m, n)
+            z_new, y_new = [], []
             for j in range(m):
-                s = A[j][0] * xt[0]
-                for i in range(1, n):
-                    s = s + A[j][i] * xt[i]
-                zt.append(s)
-            z_hat = jnp.stack([alpha * zt[j] + (1.0 - alpha) * zl[j] for j in range(m)])
-            z_new = jnp.clip(z_hat + y / rho[None, :], lo, hi)
-            y_new = y + rho[None, :] * (z_hat - z_new)
+                z_hat = alpha * zt[j] + (1.0 - alpha) * z[j]
+                zj = jnp.minimum(jnp.maximum(z_hat + y[j] / rho, lo[j]), hi[j])
+                z_new.append(zj)
+                y_new.append(y[j] + rho * (z_hat - zj))
             return (x_new, z_new, y_new)
 
         x, z, y = jax.lax.fori_loop(0, per_stage, body, (x, z, y))
 
         # Adaptive rho from the residual ratio (same rule as qp.py).
-        ax = []
-        for j in range(m):
-            s = A[j][0] * x[0]
-            for i in range(1, n):
-                s = s + A[j][i] * x[i]
-            ax.append(s)
-        ax = jnp.stack(ax)
-        r_prim = jnp.max(jnp.abs(ax - z), axis=0)
-        dual_rows = []
+        ax = _matvec(A, x, m, n)
+        r_prim = jnp.abs(ax[0] - z[0])
+        for j in range(1, m):
+            r_prim = jnp.maximum(r_prim, jnp.abs(ax[j] - z[j]))
+        r_dual = None
         for i in range(n):
             s = q[i]
             for j in range(n):
                 s = s + P[i][j] * x[j]
             for j in range(m):
                 s = s + A[j][i] * y[j]
-            dual_rows.append(s)
-        r_dual = jnp.max(jnp.abs(jnp.stack(dual_rows)), axis=0)
+            r_dual = jnp.abs(s) if r_dual is None else jnp.maximum(r_dual, jnp.abs(s))
         ratio = jnp.sqrt(
             jnp.maximum(r_prim, 1e-12) / jnp.maximum(r_dual, 1e-12)
         )
         rho = jnp.clip(rho * jnp.clip(ratio, 0.1, 10.0), 1e-4, 1e5)
+        return (x, z, y, rho)
 
-    x_out[:] = x
-    y_out[:] = y
+    x, z, y, _ = jax.lax.fori_loop(0, N_STAGES, stage, (x, z, y, rho))
+
+    for i in range(n):
+        x_out[i] = x[i]
+    for j in range(m):
+        y_out[j] = y[j]
 
 
 @functools.partial(
     jax.jit,
     static_argnames=("iters", "rho", "sigma", "alpha", "polish", "interpret"),
 )
+@highest
 def solve_qp_batch_pallas(
     P,
     q,
@@ -209,16 +221,17 @@ def solve_qp_batch_pallas(
     sigma: float = 1e-6,
     alpha: float = 1.6,
     polish: bool = True,
-    interpret: bool | None = None,
+    interpret: bool = False,
 ) -> QPSolution:
     """Batched QP solve via the Pallas ADMM kernel.
 
     Arguments carry a leading batch axis: P (B,n,n), q (B,n), A (B,m,n),
     l/u (B,m).  Returns a batched ``QPSolution`` numerically matching
     ``vmap(solve_qp)`` (same equilibration, staged rho and polish).
+    Compiles for the GPU; ``interpret=True`` runs it on any backend.
     """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
+    if not interpret:
+        require_gpu()
     Bt, m, n = A.shape
     dtype = q.dtype
 
@@ -234,40 +247,29 @@ def solve_qp_batch_pallas(
     Ps = e[:, :, None] * P * e[:, None, :]
     qs = q * e
 
-    # --- lane-major layout + batch padding ---------------------------------
-    tile = _tile_for(n, m, Bt)
-    pad = (-Bt) % tile
-    Bp = Bt + pad
-
-    def lanes(x, rows):
-        x = jnp.pad(x.reshape(Bt, rows), ((0, pad), (0, 0)))
-        return x.T  # (rows, Bp)
-
-    p_t = lanes(Ps, n * n)
-    q_t = lanes(qs, n)
-    a_t = lanes(As, m * n)
-    # Padded problems get inert bounds so clip/ADMM stay finite.
-    l_t = jnp.pad(ls, ((0, pad), (0, 0)), constant_values=-1.0).T
-    u_t = jnp.pad(us, ((0, pad), (0, 0)), constant_values=1.0).T
+    # --- lane-major layout; zero-padded problems stay finite (K = sigma I,
+    # bounds [0, 0]) ---------------------------------------------------------
+    packed = lane_major([Ps, qs, As, ls, us], TILE)
+    Bp = packed.shape[1]
 
     kern = functools.partial(
         _admm_kernel, n=n, m=m, iters=iters, rho0=rho, sigma=sigma, alpha=alpha
     )
-    grid = (Bp // tile,)
-    spec = lambda rows: pl.BlockSpec(
-        (rows, tile), lambda i: (0, i), memory_space=pltpu.VMEM
-    )
+    spec = lambda rows: pl.BlockSpec((rows, TILE), lambda i: (0, i))
     x_t, y_t = pl.pallas_call(
         kern,
-        grid=grid,
-        in_specs=[spec(n * n), spec(n), spec(m * n), spec(m), spec(m)],
+        grid=(Bp // TILE,),
+        in_specs=[spec(packed.shape[0])],
         out_specs=(spec(n), spec(m)),
         out_shape=(
             jax.ShapeDtypeStruct((n, Bp), dtype),
             jax.ShapeDtypeStruct((m, Bp), dtype),
         ),
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=NUM_WARPS, num_stages=1),
         interpret=interpret,
-    )(p_t, q_t, a_t, l_t, u_t)
+        name="qp_admm",
+    )(packed)
     x_s = x_t.T[:Bt]  # (B, n), still in scaled variables
     y_s = y_t.T[:Bt]
 

@@ -8,8 +8,8 @@ prediction) the shields must measurably engage (backup steps > 0) while the
 fleet stays collision-free throughout.
 
 Scale note: the >=1k-agent version of exactly this scenario runs in
-bench.py (bench_fleet_shielded) on the TPU; the CPU-mesh test keeps the same structure at a
-size the 2-core host can verify in seconds.
+bench.py (bench_fleet_shielded) and chip_smoke.py on the GPU; the CPU-mesh test keeps the
+same structure at a size a small host can verify in seconds.
 """
 
 import dataclasses
@@ -175,7 +175,7 @@ def test_three_family_anchor_structure_collision_free():
     groups, specs, x0s, wps, n_wps, known = build_shielded_fleet_3fam(rows=8)
     assert len(groups) == 3
     state = fleet_mod.init_shielded_fleet(groups, x0s)
-    # same chunk/neighbor parameters as the TPU bench (event-aligned
+    # same chunk/neighbor parameters as the GPU bench (event-aligned
     # chunks, wide neighbor set — see bench.bench_fleet_shielded)
     step = jax.jit(
         lambda s: fleet_mod.step_fleet_shielded(

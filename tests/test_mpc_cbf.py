@@ -201,11 +201,11 @@ def test_batched_solve_consistency():
 
 def test_scan_unroll_envelope_and_wrapper_key():
     """``scan_unroll`` is a scheduling knob: full unroll must agree with the
-    default scan lowering to f32 op-ordering noise (<5e-3, the same envelope
-    class the fused-kernel parity gates use), and the wrapper must honor the
-    ``mpc_scan_unroll`` robot_spec key (defaulting to 1 on CPU, where
-    dispatch overhead is nil and unrolling only bloats compile — the
-    accelerator default is full unroll, measured in PERF.md round 5)."""
+    default scan lowering to f32 op-ordering noise (<5e-3), and the wrapper
+    must honor the ``mpc_scan_unroll`` robot_spec key (defaulting to 1 on
+    CPU, where
+    dispatch overhead is nil and unrolling only bloats compile; the
+    accelerator default is full unroll)."""
     obs = pad_obstacles(jnp.array([[1.5, 0.1, 0.3, 0, 0, 0, 0]]), K)
     goal = jnp.array([3.0, 0.0, 0.0, 0.0])
     x0 = jnp.array([0.0, 0.0, 0.0, 0.5])

@@ -97,7 +97,7 @@ def test_du_mpc_cbf_scenario():
 
 
 def test_batched_fleet_vmap():
-    """A small fleet: vmap over initial positions, one scan — the TPU-native
+    """A small fleet: vmap over initial positions, one scan — the batched
     replacement for the reference's sequential multi-robot loop
     (examples/test_multi_robot.py:77-84)."""
     spec = make_spec(DOUBLE_INTEGRATOR_2D, v_max=1.0, a_max=1.5)
